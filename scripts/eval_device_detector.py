@@ -4,8 +4,8 @@
 Runs the 50-scene synthetic benchmark (same protocol as
 ``benchmark.py --synthetic``) through both pipelines and prints the
 horizon-error AUC@0.25 for each, plus the device-segments + ideal-prior
-decomposition from TODO.md item 5. The round-2 "done" criterion
-(VERDICT.md item 1) is device-full AUC within 0.02 of the host path.
+decomposition. The acceptance criterion is device-full AUC within 0.02
+of the host path.
 
 Usage: python scripts/eval_device_detector.py [--device cpu] [--count 50]
        [--batch 10] [--paths host,full,ideal]
@@ -67,7 +67,7 @@ def main() -> int:
                          "(row | global)")
     ap.add_argument("--det_topk", default=None,
                     help="override PipelineConfig.det_topk "
-                         "(exact | approx; approx only differs on TPU)")
+                         "(exact | approx; the same records on GPU and CPU)")
     ap.add_argument("--horizon_tol", type=float, default=None,
                     help="override PipelineConfig.horizon_pos_gate_tol "
                          "(inf = exact reference gating)")

@@ -5,7 +5,7 @@ Runs the fixed-seed 50-scene host-LSD protocol (the weights-quality
 anchor used since round 2: LSD segments are weights-independent, so the
 AUC differences isolate the CNN prior) once per artifact in ONE process
 and prints an AUC table. Used to pick the smallest factorized artifact
-within 0.001 of the dense retrain (VERDICT r4 item 3 / weak #5).
+within 0.001 of the dense retrain.
 
 Usage:
   python scripts/eval_weights_artifacts.py assets/weights.npz \

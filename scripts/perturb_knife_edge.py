@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""EM knife-edge perturbation regression (VERDICT r4 item 5).
+"""EM knife-edge perturbation regression.
 
 The round-4 side-gate waiver fixed the ihme *symptom*; the underlying
 sensitivity — two competing triplets scoring nearly equally in the

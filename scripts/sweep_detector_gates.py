@@ -48,8 +48,8 @@ REFERENCE_HORIZONS = [
 ]
 
 # (selection, runs_per_row/max_records, min_count, min_len_px, min_density)
-# a "global!" selection = global with topk_impl="approx" (the
-# PartialReduce selection; only differs from exact on TPU backends)
+# a "global!" selection = global with topk_impl="approx"
+# (jax.lax.approx_max_k, which keeps the exact records on GPU and CPU)
 VARIANTS = [
     ("row", 64, 15, 12.0, 0.70),     # row fallback
     ("row", 64, 15, 10.0, 0.70),

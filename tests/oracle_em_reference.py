@@ -3,9 +3,9 @@
 This module re-implements, in plain NumPy, the exact algorithm of the
 reference's ``vp_localisation.py:168-450`` + ``probability_functions.py``
 + ``coordinate_conversion.py`` — including every ordering choice and
-quirk — so the TPU-native EM (`vanishing_points_2017_tpu.em`) can be
-compared against the original's end-to-end behavior on identical inputs
-(VERDICT round-2 item 5). It is a TEST FIXTURE: never imported by the
+quirk — so the static-shape EM (`vanishing_points_2017_tpu.em`) can be
+compared against the original's end-to-end behavior on identical inputs.
+It is a TEST FIXTURE: never imported by the
 package, not part of the framework surface, and written vectorized where
 that cannot change behavior (the reference uses O(N^2) Python loops).
 

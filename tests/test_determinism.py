@@ -1,5 +1,5 @@
 """Determinism and batching-consistency properties (SURVEY §4: the
-reference has no concurrency to race, so the TPU-native replacement is
+reference has no concurrency to race, so the JAX replacement is
 determinism + vmap==single equivalence tests)."""
 
 import pytest

@@ -8,7 +8,7 @@ compact result dicts to agree: same number of VPs, VP directions within
 0.1 deg, per-VP inlier counts within +-1 (float32-vs-float64 rounding at
 the 1.96^2*sqrt(s) outlier threshold), same iteration count (+-1).
 
-This is the integration-order check VERDICT r2 item 5 asked for: no unit
+This is the integration-order check: no unit
 test can catch a divergence in the reference's update/delete/merge
 sequencing, but an end-to-end trajectory match can.
 """

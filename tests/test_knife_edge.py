@@ -1,4 +1,4 @@
-"""EM knife-edge perturbation regression (VERDICT r4 item 5).
+"""EM knife-edge perturbation regression.
 
 Pins the horizon's robustness to f32-level segment perturbations at the
 rate measured in round 5 (scripts/perturb_knife_edge.py; table in

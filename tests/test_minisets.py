@@ -169,7 +169,7 @@ def test_benchmark_device_detect_real_format(tmp_path, capsys):
 
 @pytest.mark.slow
 def test_golden_auc_regression(tmp_path, capsys):
-    """Committed golden-AUC gate (VERDICT r2 item 7): fixed-seed 8-image
+    """Committed golden-AUC gate: fixed-seed 8-image
     minisets per dataset format, pinned expected AUC. The paper's real
     YUD/ECD/HLW numbers remain environmentally blocked (datasets + paper
     not fetchable in this image; BASELINE.md); this pin gives the full

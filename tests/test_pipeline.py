@@ -80,37 +80,31 @@ def test_batch_matches_single(pipe):
                                np.asarray(out_0["hp1"]), atol=1e-4)
 
 
-def test_det_key_tracks_detector_config(monkeypatch):
+def test_det_key_tracks_detector_config():
     """Device-detect cache identity must change with every field that
-    changes detector outputs — gates, selection strategy, budget — and
-    must NOT change with EM config (that is cache_key()'s job) nor with
-    impl requests that the dispatch would not honor: the Pallas CCL
-    only runs on a TPU backend (lines_device dispatch gates), so on
-    this CPU test backend ccl_impl='pallas' resolves to the xla key —
-    the key records what RAN, not what was asked for. Env defaults are
-    cleared so a developer's exported VP_CCL_IMPL cannot skew this."""
+    changes detector outputs — gates, selection strategy, budget, top-k
+    form — and must NOT change with EM config (that is cache_key()'s
+    job). The CCL implementation is not a field: the GPU kernel and the
+    scan give identical labels."""
     import dataclasses
     from vanishing_points_2017_tpu.pipeline import PipelineConfig
 
-    monkeypatch.delenv("VP_CCL_IMPL", raising=False)
     base = PipelineConfig()
     seen = {base.det_key()}
+    other_topk = "approx" if base.det_topk == "exact" else "exact"
     for field, val in (("det_min_count", 20), ("det_min_len_px", 15.0),
                        ("det_min_density", 0.0), ("det_selection", "row"),
-                       ("det_max_records", 16384), ("det_topk", "exact")):
+                       ("det_max_records", 16384), ("det_topk", other_topk)):
         key = dataclasses.replace(base, **{field: val}).det_key()
         assert key not in seen, (field, key)
         seen.add(key)
     em2 = dataclasses.replace(base, maxbest=10)
     assert em2.det_key() == base.det_key()
-    # CPU backend: a pallas request cannot run, so it must key as xla
-    unhonored = dataclasses.replace(base, ccl_impl="pallas")
-    assert unhonored.det_key() == base.det_key()
-    # the round-5 approx default is RECORDED; "exact" keys bare (its
-    # historical form) so pre-round-5 exact caches stay addressable
-    assert base.det_key().endswith("-xla-approx")
+    # "exact" keys bare (its historical form); approx is recorded
     exact = dataclasses.replace(base, det_topk="exact")
-    assert exact.det_key().endswith("-xla")
+    assert exact.det_key() == "detglobal15-12-0.7-32768"
+    approx = dataclasses.replace(base, det_topk="approx")
+    assert approx.det_key() == exact.det_key() + "-approx"
 
 
 def test_cache_key_tracks_horizon_gate_tol():
@@ -284,7 +278,7 @@ def test_detector_global_selection_matches_row():
 def test_global_prefilter_equivalence():
     """The global selection's two-stage top-k (per-row top-3w/10
     prefilter, then the flat top-max_records — the production path; it
-    shrank the chip-dominant ~512k-element top_k sort ~4x) must be
+    shrinks the ~400k-element top_k sort ~4x) must be
     BIT-IDENTICAL to the one-stage flat top_k (global_prefilter=0, the
     oracle) whenever no row holds more than 3w/10 nonzero-mass runs.
     Measured densities: synthetic scenes max 56 runs/row, the
@@ -317,13 +311,11 @@ def test_global_prefilter_equivalence():
 
 def test_global_topk_approx_matches_exact_on_cpu():
     """topk_impl='approx' routes the global selection through
-    jax.lax.approx_max_k. On non-TPU backends that lowers to the exact
-    top-k (recall 1.0), so on this CPU test backend the approx path
-    must be BIT-IDENTICAL to the exact one — this guards the wiring
-    (flat positions taken directly from the approx indices, rec_ok
-    masking, no prefilter), not the TPU recall behavior, which is gated
-    on chip (scripts/sweep_detector_gates.py 'global!' variant,
-    BASELINE.md round-4 selection bisect)."""
+    jax.lax.approx_max_k, which XLA lowers to the exact top-k (recall
+    1.0) on the CPU and the GPU, so the approx path must be
+    BIT-IDENTICAL to the exact one — this guards the wiring (flat
+    positions taken directly from the approx indices, rec_ok masking,
+    no prefilter). chip_smoke.py checks the same on the card."""
     import jax.numpy as jnp
     from vanishing_points_2017_tpu.ops.lines_device import (
         detect_segments_device)

@@ -106,3 +106,65 @@ def test_weights_identity_resolves_default(tmp_path, monkeypatch):
     (assets / "weights_compact.npz").write_bytes(b"compact")
     fp = wload.weights_identity()
     assert fp == wload.artifact_fingerprint(str(assets / "weights_compact.npz"))
+
+
+def test_compile_cache_uses_env_dir(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR set: JAX keeps its cache there and
+    enable() sets no other directory."""
+    import jax
+    from vanishing_points_2017_tpu.utils import compile_cache
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    before = jax.config.jax_compilation_cache_dir
+    assert compile_cache.enable() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_defaults_to_checkout(monkeypatch):
+    """No env: the fixed <checkout>/.jax_cache, which .gitignore lists."""
+    import os
+
+    import jax
+    from vanishing_points_2017_tpu.utils import compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        path = compile_cache.enable()
+        assert path == os.path.join(root, ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == path
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+    with open(os.path.join(root, ".gitignore")) as fh:
+        assert ".jax_cache/" in fh.read().split()
+
+
+@pytest.mark.parametrize("name", ["device_pipeline", "device_pipeline_batch",
+                                  "device_pipeline_full"])
+def test_entry_points_compile_with_shipped_picks(name):
+    """The pipeline's entry points compile with COMPILER_OPTIONS (the
+    shipped autotuning picks), so the production program's numerics do not
+    depend on which process compiled it."""
+    from vanishing_points_2017_tpu import pipeline
+    from vanishing_points_2017_tpu.utils.compile_cache import (
+        COMPILER_OPTIONS)
+
+    fn = getattr(pipeline, name)
+    assert dict(fn._jit_info.compiler_options_kvs) == COMPILER_OPTIONS
+
+
+def test_shipped_picks_file():
+    """The picks file is in the checkout and holds H100 results in XLA's
+    text format."""
+    from vanishing_points_2017_tpu.utils.compile_cache import (
+        AUTOTUNE_PICKS, COMPILER_OPTIONS)
+
+    assert COMPILER_OPTIONS == {
+        "xla_gpu_load_autotune_results_from": AUTOTUNE_PICKS}
+    assert AUTOTUNE_PICKS.endswith(".txt")  # XLA reads .txt as text
+    with open(AUTOTUNE_PICKS) as fh:
+        text = fh.read()
+    assert text.startswith("version:")
+    assert "Cores: 132" in text and "results {" in text
+

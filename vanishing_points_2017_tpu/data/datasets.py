@@ -155,25 +155,97 @@ def hlw_records(root: str) -> tuple[list[Record], int]:
 
 # ---------------------------------------------------------- synthetic
 
+def _round_up(f: np.ndarray) -> np.ndarray:
+    """Round half away from zero (the rasteriser's ROUND_UP)."""
+    return (np.sign(f) * np.floor(np.abs(f) + 0.5)).astype(np.int64)
+
+
+def _round_down(f: np.ndarray) -> np.ndarray:
+    """Round half toward zero (the rasteriser's ROUND_DOWN)."""
+    return (np.sign(f) * np.ceil(np.abs(f) - 0.5)).astype(np.int64)
+
+
+def draw_lines(img: np.ndarray, xy: np.ndarray, ink: int,
+               width: int = 2) -> None:
+    """Draw thick straight lines into the (H, W) uint8 ``img`` in place.
+
+    xy: (N, 4) endpoints (x1, y1, x2, y2) in pixels, truncated toward
+    zero. Each line is the quadrilateral of PIL's ``ImageDraw.line(width=
+    width)``, filled scanline by scanline with its rounding rules, so the
+    pixels equal PIL's (tests/test_render.py compares them) without
+    needing PIL. Vectorized over lines and scanlines.
+    """
+    if width < 2:
+        raise ValueError("width < 2 is PIL's thin-line algorithm; not drawn")
+    h, w = img.shape
+    p = np.trunc(np.asarray(xy, np.float64)).astype(np.int64).reshape(-1, 4)
+    x0, y0, x1, y1 = p.T
+    dx, dy = x1 - x0, y1 - y0
+    spans = []  # (row, first column, last column), inclusive
+
+    dot = (dx == 0) & (dy == 0)
+    spans.append((y0[dot], x0[dot], x0[dot]))
+    x0, y0, x1, y1, dx, dy = (a[~dot] for a in (x0, y0, x1, y1, dx, dy))
+    big = np.hypot(dx, dy)
+    small = (width - 1) / 2.0
+    r_max = _round_up(np.float64(small)) / big
+    r_min = _round_down(np.float64(small)) / big
+    dxmin, dxmax = _round_down(r_min * dy), _round_down(r_max * dy)
+    dymin, dymax = _round_down(r_min * dx), _round_down(r_max * dx)
+    vx = np.stack([x0 - dxmin, x1 - dxmin, x1 + dxmax, x0 + dxmax], 1)
+    vy = np.stack([y0 + dymax, y1 + dymax, y1 - dymin, y0 - dymin], 1)
+    ex0, ey0 = vx, vy                                       # (L, 4) edges
+    ex1, ey1 = np.roll(vx, -1, 1), np.roll(vy, -1, 1)
+    e_ymin, e_ymax = np.minimum(ey0, ey1), np.maximum(ey0, ey1)
+    flat = e_ymin == e_ymax
+    # horizontal edges are drawn as they are
+    spans.append((e_ymin[flat], np.minimum(ex0, ex1)[flat],
+                  np.maximum(ex0, ex1)[flat]))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        slope = np.where(flat, 0.0, (ex1 - ex0).astype(np.float32)
+                         / (ey1 - ey0).astype(np.float32)).astype(np.float32)
+    e_ymin_s = np.where(flat, np.iinfo(np.int64).max, e_ymin)
+    e_ymax_s = np.where(flat, np.iinfo(np.int64).min, e_ymax)
+    top = np.clip(np.minimum(vy.min(1), h - 1), 0, None)
+    bot = np.minimum(vy.max(1), h)
+
+    # one entry per (line, scanline)
+    n_rows = np.maximum(bot - top + 1, 0)
+    li = np.repeat(np.arange(len(top)), n_rows)
+    y = top[li] + (np.arange(li.size) - np.repeat(np.cumsum(n_rows) - n_rows,
+                                                  n_rows))
+    hit = (e_ymin_s[li] <= y[:, None]) & (y[:, None] <= e_ymax_s[li])
+    xs = ((y[:, None] - ey0[li]).astype(np.float32) * slope[li]
+          + ex0[li].astype(np.float32))
+    # an edge ending on this scanline counts twice (consistent polygons)
+    dup = hit & (y[:, None] == e_ymax_s[li]) & (y[:, None] < bot[li, None])
+    cand = np.concatenate([np.where(hit, xs, np.inf),
+                           np.where(dup, xs, np.inf)], 1)
+    cand.sort(axis=1)
+    count = hit.sum(1) + dup.sum(1)
+    for k in range(1, cand.shape[1], 2):
+        ok = k < count
+        a, b = _round_up(cand[ok, k - 1]), _round_down(cand[ok, k])
+        spans.append((y[ok], a, b))
+
+    rows, first, last = (np.concatenate(c) for c in zip(*spans))
+    ok = (rows >= 0) & (rows < h) & (last >= 0) & (first < w)
+    rows, first = rows[ok], np.maximum(first[ok], 0)
+    last = np.minimum(last[ok], w - 1)
+    ok = first <= last
+    diff = np.zeros((h, w + 1), np.int32)
+    np.add.at(diff, (rows[ok], first[ok]), 1)
+    np.add.at(diff, (rows[ok], last[ok] + 1), -1)
+    img[np.cumsum(diff[:, :w], axis=1) > 0] = ink
+
+
 def render_scene_image(scene, size: int = 640, line_width: int = 2,
                        rng: np.random.Generator | None = None) -> np.ndarray:
     """Draw the scene's segments as dark lines on a light background so the
     real LSD detector can re-extract them."""
-    from PIL import Image, ImageDraw
+    from .minisets import render_scene_image_wh
 
-    im = Image.new("L", (size, size), color=220)
-    draw = ImageDraw.Draw(im)
-    s = size / 2.0
-    for seg in scene.segments:
-        x1 = seg[0] * s + s
-        y1 = -seg[1] * s + s
-        x2 = seg[2] * s + s
-        y2 = -seg[3] * s + s
-        draw.line([(x1, y1), (x2, y2)], fill=40, width=line_width)
-    arr = np.asarray(im, np.float64)
-    if rng is not None:  # mild sensor noise
-        arr = np.clip(arr + rng.normal(0, 3.0, arr.shape), 0, 255)
-    return arr.astype(np.uint8)
+    return render_scene_image_wh(scene, size, size, line_width, rng)
 
 
 def synthetic_records(count: int = 25, seed: int = 7,

@@ -34,16 +34,16 @@ def render_scene_image_wh(scene, width: int, height: int, line_width: int = 2,
                           ) -> np.ndarray:
     """Non-square variant of ``datasets.render_scene_image``: draws the
     normalized-frame segments (centre origin, +y up, long axis [-1, 1])."""
-    from PIL import Image, ImageDraw
+    from .datasets import draw_lines
 
-    im = Image.new("L", (width, height), color=220)
-    draw = ImageDraw.Draw(im)
+    arr = np.full((height, width), 220, np.uint8)
     s = max(width, height) / 2.0
-    for seg in scene.segments:
-        draw.line([(seg[0] * s + width / 2.0, -seg[1] * s + height / 2.0),
-                   (seg[2] * s + width / 2.0, -seg[3] * s + height / 2.0)],
-                  fill=40, width=line_width)
-    arr = np.asarray(im, np.float64)
+    seg = np.asarray(scene.segments).reshape(-1, 4)
+    xy = np.stack([seg[:, 0] * s + width / 2.0, -seg[:, 1] * s + height / 2.0,
+                   seg[:, 2] * s + width / 2.0, -seg[:, 3] * s + height / 2.0],
+                  axis=1)
+    draw_lines(arr, xy, 40, line_width)
+    arr = arr.astype(np.float64)
     if rng is not None:
         arr = np.clip(arr + rng.normal(0, 3.0, arr.shape), 0, 255)
     return arr.astype(np.uint8)

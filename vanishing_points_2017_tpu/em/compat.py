@@ -1,6 +1,6 @@
 """Reference-shaped result contracts.
 
-The EM core returns masked fixed-slot arrays (TPU-native); the reference
+The EM core returns masked fixed-slot arrays (static shapes); the reference
 returns compact arrays keyed exactly as ``vp_localisation.py:441-442`` of
 fkluger/vanishing_points_2017. This module converts between the two and
 offers a ``run_em_single``-style convenience entry

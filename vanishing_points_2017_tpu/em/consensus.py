@@ -11,10 +11,9 @@ winner and moves the horizon by 0.3 image heights (7/16 flips at
 0.5 px jitter). The reference runs ONE EM from ONE segment population
 and has no answer to this.
 
-On TPU an ensemble is nearly free: EM costs ~1.5 ms/batch-iteration
-(BASELINE.md round 3) against a ~4 ms/img detector, and ``vmap`` turns
-K EM instances into one wider program whose extra batch dimension the
-VPU/MXU eat without extra dispatches. So the consensus estimator:
+``vmap`` turns K EM instances into one wider program, with no extra
+dispatches; its device cost on the GPU is not measured yet. The
+consensus estimator:
 
 1. draw K-1 perturbed copies of the VALID segment population —
    member 0 is the untouched original. Default perturbation:

@@ -8,7 +8,7 @@ fkluger/vanishing_points_2017.
 ``calc_new_vanishing_point`` replaces the reference's SVD of the N x 3
 weighted line matrix with the smallest eigenvector of the 3 x 3 Gram matrix
 L^T diag(w~^2) L — identical null direction, but a fixed-size symmetric
-eigenproblem that vmaps and compiles cleanly on TPU (SURVEY §7 hard-part 1).
+eigenproblem that vmaps and compiles cleanly (SURVEY §7 hard-part 1).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from ..ops import probability as prob
+from ..ops.lines import HIGHEST
 
 
 def smallest_eigvec_3x3(a: jnp.ndarray) -> jnp.ndarray:
@@ -95,11 +96,11 @@ def weight_matrix(p_vl: jnp.ndarray, lweight: jnp.ndarray, lsim: jnp.ndarray,
               (1 + bias lw[k] sum_n lsim[n, k]),   w' = p_vl[m, :] * lweight.
 
     One (M, N) x (N, N) matmul — the reference's dominant O(M N^2) Python
-    loop, mapped onto the MXU. Rows of dead VP slots (p_vl row = 0) stay 0;
+    loop, as one matrix product. Rows of dead VP slots (p_vl row = 0) stay 0;
     invalid lines (lweight = 0, lsim row/col = 0) stay 0.
     """
     wp = p_vl * lweight[None, :]  # (M, N)
-    smooth = wp @ lsim  # (M, N)
+    smooth = jnp.matmul(wp, lsim, precision=HIGHEST)  # (M, N)
     colsum = jnp.sum(lsim, axis=0)  # (N,)
     return (wp + bias * lweight[None, :] * smooth) / \
         (1.0 + bias * lweight * colsum)[None, :]
@@ -118,7 +119,7 @@ def calc_new_vanishing_point(l: jnp.ndarray, w: jnp.ndarray):
     valid = wmax > 0
     wn = w / jnp.where(valid, wmax, 1.0)
     lw = l * wn[:, None]
-    gram = lw.T @ lw  # (3, 3) = L^T diag(wn^2) L
+    gram = jnp.matmul(lw.T, lw, precision=HIGHEST)  # L^T diag(wn^2) L
     vp = smallest_eigvec_3x3(gram)  # = SVD null direction
     vp = vp * jnp.sign(vp[2])
     return vp, valid

@@ -23,8 +23,10 @@ Caffe-parity details that matter for converted weights:
 * Grouped convs (group=2) map to ``feature_group_count=2`` — HWIO weights
   with I = in_channels / 2.
 
-Data layout is NHWC (TPU-native); weights HWIO. ``compute_dtype`` lets the
-conv stack run in bfloat16 on the MXU while params stay float32.
+Data layout is NHWC; weights HWIO. ``compute_dtype`` lets the conv and fc
+stack run in bfloat16 while params stay float32: on the GPU cuDNN and
+cuBLAS multiply bf16 operands on the tensor cores and accumulate in float32,
+and each layer's output is rounded to bf16 (``PipelineConfig.cnn_dtype``).
 """
 
 from __future__ import annotations
@@ -103,8 +105,8 @@ def lrn_across_channels(x: jnp.ndarray, local_size: int = 5,
 
 
 def _conv(x, w, b, stride, pad, groups, compute_dtype):
-    # inputs cast to compute_dtype (bf16 on the MXU); the output keeps that
-    # dtype so the conv transpose in the backward pass sees matching dtypes,
+    # inputs cast to compute_dtype (bf16 products, float32 accumulation in
+    # cuDNN); the output keeps that dtype so the conv transpose in the backward pass sees matching dtypes,
     # then the bias add upcasts to float32
     y = jax.lax.conv_general_dilated(
         x.astype(compute_dtype), w.astype(compute_dtype),

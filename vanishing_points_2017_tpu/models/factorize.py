@@ -7,7 +7,7 @@ fkluger/vanishing_points_2017); our float32 retrained equivalent is
 redundant (the 20x20 sigmoid target has ~400 effective outputs), so a
 truncated-SVD factorization ``w ~= u @ v`` with a short fine-tune keeps the
 synthetic-benchmark AUC while shrinking the artifact to tens of MB (stored
-bfloat16) AND cutting fc6's matmul FLOPs ~15x on the MXU.
+bfloat16) AND cutting fc6's matmul FLOPs ~15x.
 
 ``cnn.forward`` consumes factorized layers natively (``{"u", "v", "b"}``
 instead of ``{"w", "b"}``); ``densify`` restores dense weights for the

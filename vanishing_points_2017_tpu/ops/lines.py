@@ -5,7 +5,7 @@ Batched, jittable re-derivations of the reference's per-pair Python loops
 ``vp_localisation.py:87-108``, ``line_rating_knn`` ``vp_localisation.py:34-72``
 of fkluger/vanishing_points_2017). Those are the O(N^2) hot kernels the
 reference fans out over CPU worker processes with joblib; here each becomes a
-single dense masked (N, N) computation that XLA maps onto the VPU/MXU.
+single dense masked (N, N) computation.
 
 Conventions:
 * A segment ``lp`` is a length-4 vector (x1, y1, x2, y2) in the pipeline's
@@ -21,6 +21,11 @@ import jax
 import jax.numpy as jnp
 
 PI = jnp.pi
+# Precision of every geometric float32 product in ops/ and em/: full
+# float32. A GPU may otherwise run them in TF32 (about three decimal
+# digits), and the EM's tightest triplet decisions sit at relative margins
+# of 0.002-0.005 (BASELINE.md knife-edge probes). Only the CNN runs in bf16.
+HIGHEST = jax.lax.Precision.HIGHEST
 # Sentinel self/padding distance; larger than any real distance in the
 # normalized frame (max ~2*sqrt(2)). Matches the reference's self-distance 4
 # (``vp_localisation.py:82``).
@@ -58,7 +63,7 @@ def pairwise_cosangle(lp: jnp.ndarray, f: float = 1.0) -> jnp.ndarray:
     v = lp[:, 0:2] - lp[:, 2:4]
     n = jnp.linalg.norm(v, axis=-1)
     vn = v / jnp.where(n == 0, 1.0, n)[:, None]
-    dot = jnp.abs(vn @ vn.T)
+    dot = jnp.abs(jnp.matmul(vn, vn.T, precision=HIGHEST))
     # |cross_z| of the unit directions; atan2 formulation of
     # dphi = arccos(|dot|) — identical math, but float32-stable near dphi=0
     # (arccos loses ~sqrt(eps) precision exactly where f=9 amplifies it)

@@ -2,7 +2,7 @@
 
 The reference's only host-side hot stage is LSD (C/Cython there, C++ in
 ``lsd/`` here; call-site contract ``evaluation.py:227-251`` of
-fkluger/vanishing_points_2017). This module is the TPU-native equivalent for
+fkluger/vanishing_points_2017). This module is the on-device equivalent for
 the fully fused path, built around the same primitives as von Gioi's LSD but
 reformulated as data-parallel passes with static shapes:
 
@@ -13,8 +13,8 @@ reformulated as data-parallel passes with static shapes:
    region-growing predicate, applied pairwise). Labels converge by
    alternating raster min-label passes (descending + ascending rows, with
    bidirectional segmented min scans inside each row) — exact in two
-   passes for digital straight lines and free of the (H*W)-element random
-   gathers that made pointer jumping slow on TPU.
+   passes for digital straight lines and free of (H*W)-element random
+   gathers. On a GPU a CUDA kernel runs the same passes (``ccl_gpu``).
 3. Component selection + exact moments + endpoints from per-row RUN
    RECORDS: a component's pixels in one row are contiguous runs, so
    segmented row scans produce per-run mass/moment/endpoint records;
@@ -74,8 +74,8 @@ def _gaussian_blur(img: jnp.ndarray, sigma: float) -> jnp.ndarray:
     k = np.exp(-0.5 * (np.arange(-r, r + 1) / sigma) ** 2)
     k = (k / k.sum()).astype(np.float32)
     # shift-and-add instead of conv: a (2r+1)-tap single-channel conv
-    # cannot use the MXU and measured ~2 ms/img; static shifted slices
-    # are pure VPU adds (~0.06 ms).
+    # has no use for a matrix unit; static shifted slices are elementwise
+    # adds that XLA fuses.
     h, w = img.shape
     p = jnp.pad(img, ((r, r), (0, 0)), mode="edge")
     out = sum(float(k[i]) * jax.lax.dynamic_slice(p, (i, 0), (h, w))
@@ -83,6 +83,31 @@ def _gaussian_blur(img: jnp.ndarray, sigma: float) -> jnp.ndarray:
     p = jnp.pad(out, ((0, 0), (r, r)), mode="edge")
     return sum(float(k[i]) * jax.lax.dynamic_slice(p, (0, i), (h, w))
                for i in range(2 * r + 1))
+
+
+def level_lines(image: jnp.ndarray, blur_sigma: float = 1.0,
+                tol_deg: float = TOL_DEG):
+    """(H, W) image -> (active, ux, uy, mag) on the (H-1, W-1) grid.
+
+    LSD's 2x2 gradient after the Gaussian blur; ``active`` is LSD's
+    ``rho = quant / sin(tol)`` threshold on the gradient magnitude and
+    (ux, uy) the unit DIRECTED level-line direction.
+    """
+    img = image.astype(jnp.float32)
+    if blur_sigma > 0:
+        img = _gaussian_blur(img, blur_sigma)
+    com1 = img[1:, 1:] - img[:-1, :-1]
+    com2 = img[:-1, 1:] - img[1:, :-1]
+    gx = 0.5 * (com1 + com2)
+    gy = 0.5 * (com1 - com2)
+    mag = jnp.sqrt(gx * gx + gy * gy)
+    active = mag > QUANT / math.sin(math.radians(tol_deg))
+    inv = jnp.where(mag > 0, 1.0 / jnp.maximum(mag, 1e-12), 0.0)
+    # level-line direction = gradient rotated 90 degrees: (ux, uy) =
+    # (gx, -gy)/|g|, an orthogonal transform of (cos, sin) of LSD's
+    # atan2(gx, -gy) angle — dot products, hence angle differences, are
+    # preserved
+    return active, gx * inv, -gy * inv, mag
 
 
 def _edge_masks(active: jnp.ndarray, ux: jnp.ndarray, uy: jnp.ndarray,
@@ -113,7 +138,7 @@ def _connected_components_jump(active: jnp.ndarray, ux: jnp.ndarray,
     Returns (H*W,) int32 root labels (inactive pixels keep their own index).
 
     Exact for arbitrary shapes, but each jump is a (H*W,)-element random
-    gather — slow on TPU. Kept as the oracle for the raster variant below.
+    gather. Kept as the oracle for the raster variant below.
     """
     h, w = active.shape
     lab0 = jnp.arange(h * w, dtype=jnp.int32).reshape(h, w)
@@ -188,6 +213,25 @@ def _raster_half_pass(lab: jnp.ndarray, m_up: jnp.ndarray,
     return rows
 
 
+def _raster_ccl(em: dict, passes: int) -> jnp.ndarray:
+    """Alternating raster passes over precomputed edge masks -> (H*W,)."""
+    h, w = em[(0, 1)].shape
+    lab = jnp.arange(h * w, dtype=jnp.int32).reshape(h, w)
+
+    def pass_pair(_, lab):
+        # descending rows, then ascending (== descending on the flipped grid)
+        lab = _raster_half_pass(lab, em[(-1, 0)], em[(-1, -1)],
+                                em[(-1, 1)], em[(0, -1)], em[(0, 1)])
+        return _raster_half_pass(
+            lab[::-1], em[(1, 0)][::-1], em[(1, -1)][::-1],
+            em[(1, 1)][::-1], em[(0, -1)][::-1], em[(0, 1)][::-1])[::-1]
+
+    # fori over pass PAIRS keeps the compiled graph one pair deep no
+    # matter how many passes run
+    lab = jax.lax.fori_loop(0, max(1, passes // 2), pass_pair, lab)
+    return lab.reshape(-1)
+
+
 def _connected_components(active: jnp.ndarray, ux: jnp.ndarray,
                           uy: jnp.ndarray, cos_tol: float,
                           passes: int = 4) -> jnp.ndarray:
@@ -202,77 +246,31 @@ def _connected_components(active: jnp.ndarray, ux: jnp.ndarray,
     Measured on rendered synthetic scenes (tests/test_pipeline.py): 8
     passes reach the exact BFS fixpoint, while the pointer-jumping
     variant still has a few dozen unconverged pixels after 34 rounds —
-    this formulation is both faster on TPU (no gathers) and more exact.
+    this formulation needs no gathers and is more exact. It is the plain
+    reference of the GPU kernel (``ccl_gpu``) and the path on every other
+    backend.
     """
-    h, w = active.shape
-    lab = jnp.arange(h * w, dtype=jnp.int32).reshape(h, w)
+    return _raster_ccl(_edge_masks(active, ux, uy, cos_tol), passes)
+
+
+def connected_components(active: jnp.ndarray, ux: jnp.ndarray,
+                         uy: jnp.ndarray, cos_tol: float,
+                         passes: int) -> jnp.ndarray:
+    """:func:`_connected_components`, run by the CUDA kernel on a GPU.
+
+    The choice is made when the program is lowered for its platform
+    (``lax.platform_dependent``), so one traced program runs the kernel on
+    the card and the scan on the CPU. The labels are identical.
+    """
     em = _edge_masks(active, ux, uy, cos_tol)
 
-    def pass_pair(_, lab):
-        # descending rows, then ascending (== descending on the flipped grid)
-        lab = _raster_half_pass(lab, em[(-1, 0)], em[(-1, -1)],
-                                em[(-1, 1)], em[(0, -1)], em[(0, 1)])
-        return _raster_half_pass(
-            lab[::-1], em[(1, 0)][::-1], em[(1, -1)][::-1],
-            em[(1, 1)][::-1], em[(0, -1)][::-1], em[(0, 1)][::-1])[::-1]
+    def gpu(em):
+        from . import ccl_gpu
+        return ccl_gpu.raster_ccl(ccl_gpu.pack_edge_masks(em),
+                                  passes).reshape(-1)
 
-    # fori over pass PAIRS keeps the compiled graph one pair deep no
-    # matter how many passes run (XLA compile time was the binding
-    # constraint, not runtime).
-    lab = jax.lax.fori_loop(0, max(1, passes // 2), pass_pair, lab)
-    return lab.reshape(-1)
-
-
-def _use_pallas_ccl(impl: str | None = None) -> bool:
-    """impl None = env default (VP_CCL_IMPL, read at trace time — note a
-    nested-jit cache hit will NOT re-read it; pass impl explicitly, e.g.
-    via PipelineConfig.ccl_impl, when the choice must be cache-correct)."""
-    import os
-    if impl is None:
-        impl = os.environ.get("VP_CCL_IMPL", "pallas")
-    return jax.default_backend() == "tpu" and impl != "xla"
-
-
-@functools.lru_cache(maxsize=None)
-def _ccl_dispatch_factory(cos_tol: float, passes: int,
-                          impl: str | None = None):
-    """CCL backend dispatch (cos_tol/passes/impl static via this factory).
-
-    Unbatched: XLA raster scan (also covers the rare direct single-image
-    call on TPU — a batch of 1 would waste the kernel's vector width
-    anyway). Batched under vmap on TPU: the batch-vectorized Pallas
-    kernel (ops/ccl_pallas.py), which processes the same row of every
-    image as one (B, W) vector op instead of B serialized (1, W) scan
-    steps."""
-
-    @jax.custom_batching.custom_vmap
-    def dispatch(active, ux, uy):
-        return _connected_components(active, ux, uy, cos_tol, passes)
-
-    @dispatch.def_vmap
-    def _vmap(axis_size, in_batched, active, ux, uy):
-        ab, xb, yb = in_batched
-        if not ab:
-            active = jnp.broadcast_to(active, (axis_size,) + active.shape)
-        if not xb:
-            ux = jnp.broadcast_to(ux, (axis_size,) + ux.shape)
-        if not yb:
-            uy = jnp.broadcast_to(uy, (axis_size,) + uy.shape)
-        if _use_pallas_ccl(impl):
-            from .ccl_pallas import connected_components_pallas_batch
-            out = connected_components_pallas_batch(active, ux, uy,
-                                                    cos_tol, passes)
-        else:
-            out = jax.vmap(lambda a, x, y: _connected_components(
-                a, x, y, cos_tol, passes))(active, ux, uy)
-        return out, True
-
-    return dispatch
-
-
-def _ccl_dispatch(active, ux, uy, cos_tol, passes, impl: str | None = None):
-    return _ccl_dispatch_factory(float(cos_tol), int(passes),
-                                 impl)(active, ux, uy)
+    return jax.lax.platform_dependent(
+        em, cuda=gpu, default=lambda em: _raster_ccl(em, passes))
 
 
 def ccl_fixpoint_residual(active: jnp.ndarray, ux: jnp.ndarray,
@@ -341,8 +339,7 @@ def _component_stats(root: jnp.ndarray, wgt: jnp.ndarray, xn2: jnp.ndarray,
                      max_records: int = 32768,
                      global_prefilter: int | None = None,
                      topk_impl: str = "exact",
-                     coord_affine: tuple[float, float, float] | None = None,
-                     _stop_after: str | None = None):
+                     coord_affine: tuple[float, float, float] | None = None):
     """Top-k components by gradient mass, with exact moments + extremal
     projections — all from per-row RUN RECORDS, never a per-pixel
     sort/scatter/membership pass.
@@ -379,12 +376,6 @@ def _component_stats(root: jnp.ndarray, wgt: jnp.ndarray, xn2: jnp.ndarray,
     bitcast (6 total) instead of a second gather. None keeps the pure
     gather formulation (the equivalence oracle,
     tests/test_pipeline.py::test_coord_affine_equivalence).
-
-    ``_stop_after`` (profiling only — scripts/profile_detector.py's
-    stage bisect): return the named intermediate instead of the full
-    result, so each prefix of THIS production code path can be timed as
-    its own program (XLA dead-code-eliminates everything downstream).
-    One of "scans", "select", "sort", "gsum", "broadcast", "minmax".
 
     Returns a dict of per-slot arrays (all shaped (max_segments,)):
     ``valid, mass, cnt, cx, cy, ddx, ddy, lam_min, tmin, tmax``.
@@ -430,8 +421,6 @@ def _component_stats(root: jnp.ndarray, wgt: jnp.ndarray, xn2: jnp.ndarray,
     # from the production path; the oracle (coord_affine=None) keeps it.
     x_first = (None if coord_affine is not None
                else _segmented_copy_first(xn2, conn, log_w))
-    if _stop_after == "scans":
-        return qs if x_first is None else (qs, x_first)
 
     # ---- run-record selection: global top-R (by run mass over the whole
     # image) or per-row top-k. Global is exact whenever the image holds
@@ -447,20 +436,14 @@ def _component_stats(root: jnp.ndarray, wgt: jnp.ndarray, xn2: jnp.ndarray,
         raise ValueError(f"unknown topk_impl {topk_impl!r}; "
                          "expected 'exact' or 'approx'")
     if selection == "global" and topk_impl == "approx":
-        # TPU-native PartialReduce (jax.lax.approx_max_k) instead of the
-        # exact top_k's full sort — chip-measured at dispatch noise where
-        # the exact selection chain is ~1.5 ms/img (BASELINE.md round-4
-        # "selection bisect"). Semantics: when the image holds <=
-        # max_records nonzero runs the kept SET equals the exact one
-        # (measured: all true candidates kept); above the budget it may
-        # additionally miss ~(1 - recall_target) of records near the
-        # mass boundary — the same graceful partial-drop class as the
-        # row budget (a component keeps its other rows' records). The
-        # indices ARE the flat run-end positions (no prefilter/pos
-        # bookkeeping). On non-TPU backends approx_max_k lowers to the
-        # exact sort, so CPU tests cannot observe recall misses — the
-        # real-photo/AUC gates for this mode run on chip
-        # (scripts/sweep_detector_gates.py, eval_device_detector.py).
+        # jax.lax.approx_max_k over all H*W run ends. On the GPU and the
+        # CPU XLA lowers it to an exact sort, so the kept SET equals the
+        # exact selection's (tests/test_pipeline.py, chip_smoke.py phase
+        # 5); above max_records an approximate lowering may additionally
+        # miss ~(1 - recall_target) of records near the mass boundary —
+        # the same graceful partial-drop class as the row budget (a
+        # component keeps its other rows' records). The indices ARE the
+        # flat run-end positions (no prefilter/pos bookkeeping).
         r_sel = min(max_records, h * w)
         mass_flat = jnp.where(is_end, qs[0], -1.0).reshape(-1)
         top_mass, flat_pos = jax.lax.approx_max_k(
@@ -470,10 +453,8 @@ def _component_stats(root: jnp.ndarray, wgt: jnp.ndarray, xn2: jnp.ndarray,
     elif selection == "global":
         # Two-stage selection: a per-row top-k_pre prefilter, then the
         # flat top-max_records over the H*k_pre candidates. The naive
-        # one-stage top_k over all H*W run-end masses lowers to a full
-        # ~512k-element sort on TPU — chip-bisected at ~28 ms/batch-of-16
-        # (~1.75 ms/img), the single dominant detector cost at the
-        # production defaults. The prefilter shrinks the big sort's
+        # one-stage top_k over all H*W run-end masses is a full
+        # ~400k-element sort; the prefilter shrinks the big sort's
         # operand ~4x. It can only change the result if one row holds
         # more than k_pre nonzero-mass runs AND one of the dropped
         # (that row's weakest) runs would have made the global top-k:
@@ -514,12 +495,10 @@ def _component_stats(root: jnp.ndarray, wgt: jnp.ndarray, xn2: jnp.ndarray,
         row_i = jnp.arange(h, dtype=jnp.int32)[:, None]
         flat_pos = (row_i * w + top_pos.astype(jnp.int32)).reshape(-1)
     # fetch every record channel with ONE row-gather of the stacked
-    # (H*W, C) matrix at the selected flat positions. Chip-measured:
-    # per-channel minor-axis take_along_axis gathers run at ~200
-    # ns/element on TPU — 13 of them at (H, 64) were ~6 ms/img, the
-    # dominant hidden cost of the row path — while the row-gather's
-    # per-record DMA is ~free. Identical values in identical (row-major)
-    # order, so outputs are bit-identical to the take formulation.
+    # (H*W, C) matrix at the selected flat positions instead of one
+    # minor-axis take_along_axis per channel. Identical values in
+    # identical (row-major) order, so outputs are bit-identical to the
+    # take formulation.
     chans = [qs[i].reshape(-1) for i in range(4)]
     if coord_affine is None:
         chans += [x_first.reshape(-1), xn2.reshape(-1), yn2.reshape(-1)]
@@ -559,21 +538,9 @@ def _component_stats(root: jnp.ndarray, wgt: jnp.ndarray, xn2: jnp.ndarray,
     rec_q = [rec_w, rec_wx, rec_y * rec_w, rec_wxx, rec_y * rec_wx,
              rec_y * rec_y * rec_w, rec_cnt]
     rec_pos = flat_pos
-    if _stop_after == "select":
-        return rec_root, rec_pos, rec_q, rec_x0, rec_x1, rec_y
 
     # ---- one sort by root groups each component's records contiguously,
-    # then per-group reductions. On TPU every XLA-level strategy for the
-    # reorder (11-operand lax.sort, 2-operand sort + payload gather on
-    # either axis) measured the same ~5.3 ms/img — per-HLO-op dispatch
-    # overhead through the sorting network, not data volume — and the
-    # downstream doubling-step reductions another ~1.5 ms/img of the
-    # same. A fused Pallas bitonic-sort + group-stats path (one packed
-    # VMEM layout up to the final top-k) was built and chip-measured in
-    # round 3 at PARITY with this XLA formulation inside the whole
-    # detector (7.95 vs 7.84 ms/img at batch 16 — its lax.map batching
-    # serialized the images one kernel chain at a time) and retired in
-    # round 4 under the win-or-delete standard; git history has it.
+    # then per-group reductions (segmented doubling sums, min/max).
     n_rec = rec_root.shape[0]
     payload = jnp.stack([*rec_q, rec_x0, rec_x1, rec_y], axis=0)  # (10, R)
     # CANONICAL order: (root, run-end flat position) is a total order on
@@ -586,16 +553,12 @@ def _component_stats(root: jnp.ndarray, wgt: jnp.ndarray, xn2: jnp.ndarray,
     #
     # Sort 3 operands (keys + an iota), then move the 10 payload
     # channels with ONE row-gather of the (R, 10) matrix by the sort
-    # permutation: dragging all 10 channels through the TPU bitonic
-    # network (a 12-operand sort, padded to the next power of two)
-    # chip-measured ~5-6 ms/img of the whole detector at the row path's
-    # 40832 records, while the 3-operand sort + row-gather moves the
-    # identical f32 values into the identical order for ~1 ms/img.
+    # permutation, rather than dragging all 10 channels through a
+    # 12-operand sort: the identical f32 values land in the identical
+    # order.
     idx = jnp.arange(n_rec, dtype=jnp.int32)
     rs, _, perm = jax.lax.sort([rec_root, rec_pos, idx], num_keys=2)
     payload = payload.T[perm].T                               # (10, R)
-    if _stop_after == "sort":
-        return rs, payload
     sq = payload[:7]                                          # (7, R)
     sx0, sx1, sy = payload[7], payload[8], payload[9]
     log_r = max(1, math.ceil(math.log2(n_rec)))
@@ -604,8 +567,6 @@ def _component_stats(root: jnp.ndarray, wgt: jnp.ndarray, xn2: jnp.ndarray,
     g_end = jnp.concatenate([rs[1:] != rs[:-1], jnp.ones((1,), bool)])
 
     gsum = _segmented_sum_scan(sq, gconn[None], log_r)        # (7, R)
-    if _stop_after == "gsum":
-        return gsum
     s_w, s_wx, s_wy, s_wxx, s_wxy, s_wyy, s_cnt = [
         gsum[i] for i in range(7)]
 
@@ -634,17 +595,13 @@ def _component_stats(root: jnp.ndarray, wgt: jnp.ndarray, xn2: jnp.ndarray,
     ddy = jnp.where(ok_e, ey / jnp.where(ok_e, en, 1.0), 0.0)
 
     # ---- broadcast each group's END direction back to its records.
-    # The group stage is op-COUNT-bound on TPU (each doubling round is a
-    # handful of ~40k-element ops at fixed per-op dispatch latency), so
-    # paired scans sharing a conn mask are stacked into ONE scan over a
+    # Paired scans sharing a conn mask are stacked into ONE scan over a
     # (2, R) operand — identical elementwise ops per lane, bit-identical
     # results, half the HLO ops.
     same_next = jnp.concatenate([rs[:-1] == rs[1:], jnp.zeros((1,), bool)])
     flip_conn = same_next[::-1]
     dd_b = _segmented_copy_first(
         jnp.stack([ddx[::-1], ddy[::-1]]), flip_conn[None], log_r)[:, ::-1]
-    if _stop_after == "broadcast":
-        return dd_b
     ddx_b, ddy_b = dd_b[0], dd_b[1]
 
     # ---- extremal projections: per-run extrema sit at run endpoints
@@ -655,8 +612,6 @@ def _component_stats(root: jnp.ndarray, wgt: jnp.ndarray, xn2: jnp.ndarray,
         jnp.stack([jnp.minimum(t0, t1) + inf,
                    -jnp.maximum(t0, t1) + inf]), gconn[None], log_r)
     gmin, gmax = gmm[0], -gmm[1]
-    if _stop_after == "minmax":
-        return gmin, gmax
 
     # ---- top-k components by total mass (group ends only)
     score = jnp.where(g_end & (rs >= 0), gsum[0], -1.0)
@@ -677,7 +632,6 @@ def _component_stats(root: jnp.ndarray, wgt: jnp.ndarray, xn2: jnp.ndarray,
                                              "blur_sigma", "pair_tol_factor",
                                              "runs_per_row",
                                              "check_fixpoint",
-                                             "ccl_impl",
                                              "selection", "max_records",
                                              "global_prefilter",
                                              "topk_impl"))
@@ -690,7 +644,6 @@ def detect_segments_device(image: jnp.ndarray, max_segments: int = 512,
                            pair_tol_factor: float = 1.0,
                            runs_per_row: int | None = None,
                            check_fixpoint: bool = False,
-                           ccl_impl: str | None = None,
                            selection: str = "row",
                            max_records: int = 32768,
                            global_prefilter: int | None = None,
@@ -704,59 +657,32 @@ def detect_segments_device(image: jnp.ndarray, max_segments: int = 512,
     ``check_fixpoint=True`` poisons the output with NaN if ``ccl_passes``
     raster passes did not reach the CCL fixpoint (debug aid; the passes
     are provably exact only for digital straight lines).
-    ``ccl_impl`` pins the CCL kernel backend ("xla"/"pallas"); None =
-    env default (VP_CCL_IMPL) resolved at trace time — use the explicit
-    arg (PipelineConfig.ccl_impl) when the choice must survive
-    nested-jit trace caching.
     ``selection``: "row" (this function's low-level default) = per-row
     top-``runs_per_row`` run records; "global" = image-wide
-    top-``max_records`` by run mass — 2.3x faster on chip, free of
-    per-row drops, and the PRODUCTION default since round 4
-    (PipelineConfig.det_selection; the f32 record-order knife edge that
-    kept it opt-in was resolved by the zenith side-gate waiver, see
-    BASELINE.md round-4 section).
+    top-``max_records`` by run mass — free of per-row drops, and the
+    production default (PipelineConfig.det_selection; the f32
+    record-order knife edge that kept it opt-in was resolved by the
+    zenith side-gate waiver, see BASELINE.md round-4 section).
     ``global_prefilter``: per-row candidate cap of the global selection's
     two-stage top-k (None = the 3w/10 rule, 0 = the one-stage oracle;
     see _component_stats).
-    ``topk_impl``: "exact" (bit-exact global top-``max_records``) or
-    "approx" (TPU PartialReduce via ``jax.lax.approx_max_k``, ~the whole
-    selection stage for free; set-exact whenever the image holds <=
-    max_records nonzero runs, may miss ~1% of boundary records above it
-    — see _component_stats). Only meaningful with selection="global".
-    "approx" is the production default since round 5 (the chip
-    re-validation gate passed with outputs identical to exact —
-    BASELINE.md round-5 section).
+    ``topk_impl``: "exact" (bit-exact two-stage global top-``max_records``,
+    the production default) or "approx" (``jax.lax.approx_max_k``; the
+    same record set on GPU and CPU, see _component_stats). Only
+    meaningful with selection="global".
     """
     h, w = image.shape
-    img = image.astype(jnp.float32)
-    if blur_sigma > 0:
-        img = _gaussian_blur(img, blur_sigma)
     hi, wi = h - 1, w - 1  # inner 2x2-gradient grid
     npix = hi * wi
-
-    # ---- 2x2 gradient (LSD's operators) on the (H-1, W-1) inner grid
-    com1 = img[1:, 1:] - img[:-1, :-1]
-    com2 = img[:-1, 1:] - img[1:, :-1]
-    gx = 0.5 * (com1 + com2)
-    gy = 0.5 * (com1 - com2)
-    mag = jnp.sqrt(gx * gx + gy * gy)
-    # directed level-line direction = gradient rotated 90 degrees
     tol = math.radians(tol_deg)
-    rho_thresh = QUANT / math.sin(tol)
-    active = mag > rho_thresh
-    inv = jnp.where(mag > 0, 1.0 / jnp.maximum(mag, 1e-12), 0.0)
-    # unit level-line direction, directed ((ux, uy) = (gx, -gy)/|g|, an
-    # orthogonal transform of (cos, sin) of LSD's atan2(gx, -gy) angle —
-    # dot products, hence angle differences, are preserved)
-    ux = gx * inv
-    uy = -gy * inv
+    active, ux, uy, mag = level_lines(image, blur_sigma, tol_deg)
 
     # LSD admits pixels within tol of the REGION angle, so two member
     # pixels can differ by up to 2*tol (triangle inequality); the pairwise
     # predicate defaults to 2*tol or residual staircase wobble (which
     # alternates between the two +-tol extremes) fragments regions.
-    root = _ccl_dispatch(active, ux, uy, math.cos(pair_tol_factor * tol),
-                         ccl_passes, impl=ccl_impl)
+    root = connected_components(active, ux, uy,
+                                math.cos(pair_tol_factor * tol), ccl_passes)
     if check_fixpoint:
         resid = ccl_fixpoint_residual(active, ux, uy,
                                       math.cos(pair_tol_factor * tol), root)

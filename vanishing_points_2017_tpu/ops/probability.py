@@ -7,7 +7,7 @@ reference's numerics, both behaviour-preserving:
 1. **Log-space likelihoods.** The reference computes the per-line likelihood
    ``p(l|v) = N(lvsq; 0, s)`` in linear float64 where ``1/sqrt(2 pi s)`` can
    reach 1e100 (s is floored at 1e-200, ``probability_functions.py:139``).
-   TPUs are float32-first, so we carry ``log s`` and ``log p(l|v)`` instead;
+   Accelerators are float32-first, so we carry ``log s`` and ``log p(l|v)`` instead;
    the posterior ``p(v|l)`` is always in [0, 1] and is materialised linearly.
    The evidence floor ``p(l) >= 1e-12`` (``probability_functions.py:117``)
    becomes a clamp on ``log p(l)``.
@@ -36,6 +36,8 @@ import math
 from typing import NamedTuple
 
 import jax.numpy as jnp
+
+from .lines import HIGHEST
 
 LOG2PI = math.log(2.0 * math.pi)
 LOG_S_FLOOR = -460.517018598809136804  # log(1e-200), reference's s floor
@@ -125,7 +127,7 @@ def calc_pdf(pdfpar: PDFParams, query: jnp.ndarray,
     inv = -0.5 / (pdfpar.sigma * pdfpar.sigma)
     e = (jnp.exp(d1 * inv) + jnp.exp(d2 * inv) + jnp.exp(d3 * inv)
          + jnp.exp(d4 * inv) + jnp.exp(d5 * inv))
-    return e @ pdfpar.weights
+    return jnp.matmul(e, pdfpar.weights, precision=HIGHEST)
 
 
 def calc_angles(v: jnp.ndarray) -> jnp.ndarray:
@@ -139,7 +141,7 @@ def calc_angles(v: jnp.ndarray) -> jnp.ndarray:
 def calc_lvsq_dotprod(v: jnp.ndarray, l: jnp.ndarray) -> jnp.ndarray:
     """(M,3) VPs x (N,3) lines -> (N,M) squared dot products
     (``calc_lvsq_dotprod``, ``probability_functions.py:150-154``)."""
-    lv = l @ v.T
+    lv = jnp.matmul(l, v.T, precision=HIGHEST)
     return lv * lv
 
 

@@ -1,17 +1,16 @@
-"""Multi-process (multi-slice / DCN) initialisation helpers.
+"""Multi-process (one process per host) initialisation helpers.
 
 The reference has NO distributed runtime — stages talk through pickle files
 and joblib worker pipes (SURVEY §2.10 of the fkluger/vanishing_points_2017
-analysis). The TPU-native story is JAX's built-in runtime: every process
-calls :func:`initialize` (a thin, env-aware wrapper over
-``jax.distributed.initialize``), after which ``jax.devices()`` spans all
-processes and the SAME ``shard_map``/``pjit`` programs ride ICI within a
-slice and DCN across slices.
+analysis). Here every process calls :func:`initialize` (a thin, env-aware
+wrapper over ``jax.distributed.initialize``), after which ``jax.devices()``
+spans all processes and the SAME ``shard_map``/``jit`` programs run across
+them; XLA hands the collectives to NCCL.
 
-Mesh layout rule for multi-slice: put the model axes (tp) INSIDE a slice
-and the data axis (dp) across slices — DCN only carries gradient
-all-reduces, ICI the activation collectives. :func:`make_multislice_mesh`
-encodes that with ``mesh_utils.create_hybrid_device_mesh``.
+Mesh layout rule for several hosts: put the model axis (tp) INSIDE a host,
+where the GPUs share NVLink, and the data axis (dp) across hosts, which
+then only carry the dp all-reduces. :func:`make_multislice_mesh` encodes
+that with ``mesh_utils.create_hybrid_device_mesh``.
 """
 
 from __future__ import annotations
@@ -31,9 +30,9 @@ def initialize(coordinator_address: str | None = None,
 
     Arguments default to the standard env vars (``JAX_COORDINATOR_ADDRESS``
     / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``), so launchers can export
-    env and call ``initialize()`` bare. On managed TPU pods
-    ``jax.distributed.initialize()`` autodetects everything; this wrapper
-    only fills in explicit settings for CPU/GPU or custom launches.
+    env and call ``initialize()`` bare. Nothing is autodetected on a plain
+    GPU host, so the launcher must give the coordinator address, the
+    process count and this process's id.
     """
     if jax._src.distributed.global_state.client is not None:  # already up
         return
@@ -50,11 +49,11 @@ def initialize(coordinator_address: str | None = None,
 
 
 def make_multislice_mesh(tp: int = 1):
-    """A (dp, tp) mesh that keeps tp inside one slice/process granule.
+    """A (dp, tp) mesh that keeps tp inside one process granule.
 
     Single-process: plain ``make_mesh``. Multi-process: a hybrid mesh whose
-    outer (dp) axis crosses the process/DCN boundary while tp stays on the
-    ICI-connected granule, so the only cross-slice collective is the dp
+    outer (dp) axis crosses the process boundary while tp stays inside one
+    process's devices, so the only cross-process collective is the dp
     all-reduce.
     """
     n_proc = jax.process_count()
@@ -68,8 +67,8 @@ def make_multislice_mesh(tp: int = 1):
     if tp > per_proc or per_proc % tp != 0:
         raise ValueError(f"tp={tp} must divide the {per_proc} devices of "
                          "one process granule")
-    # TPU slices carry a meaningful slice_index; on CPU/GPU every device
-    # reports the same one, so fall back to processes as the DCN granule
+    # devices that report no distinct slice_index per process (CPU, GPU)
+    # use the process as the granule
     slice_ids = {getattr(d, "slice_index", None) for d in jax.devices()}
     granule_by_process = len(slice_ids) != n_proc
     devices = mesh_utils.create_hybrid_device_mesh(

@@ -2,20 +2,23 @@
 
 The reference's only parallelism is joblib CPU pools inside one image's EM
 (``vp_localisation.py:44,92,647`` of fkluger/vanishing_points_2017) plus
-on-disk pickles between stages (SURVEY §2.10). The TPU-native story:
+on-disk pickles between stages (SURVEY §2.10). Here:
 
 * **dp** axis — data parallelism over images: the batched pipeline and the
   CNN training batch shard their leading axis here; XLA inserts the gradient
-  all-reduces over ICI for the sharded-batch matmuls.
+  all-reduces (NCCL over NVLink on a GPU host) for the sharded-batch
+  matmuls. Inference runs one per-device program per dp shard
+  (``parallel/inference.py``).
 * **tp** axis — tensor parallelism over the wide fc6/fc7 layers (the only
   weights where sharding pays: fc6 is 57600x4096 = 94% of the model's
   parameters). fc6's output dim and fc7's input dim are sharded so the
   activation stays tp-sharded between them and XLA places a single
-  reduce-scatter/all-gather pair.
+  reduce-scatter/all-gather pair. Used by training only (serving
+  replicates the model and takes tp=1); the GPUs of one host
+  are joined all to all, so the mesh follows the algorithm, not a topology.
 
-Multi-process (multi-slice) runs initialise ``jax.distributed`` before
-calling :func:`make_mesh`; the mesh then spans all processes and the same
-shardings ride DCN across slices.
+Multi-process runs initialise ``jax.distributed`` before calling
+:func:`make_mesh`; the mesh then spans all processes.
 """
 
 from __future__ import annotations
@@ -54,13 +57,6 @@ def shard_params(params, mesh: Mesh):
     return jax.tree_util.tree_map_with_path(
         lambda path, leaf: jax.device_put(
             leaf, NamedSharding(mesh, param_spec(path, leaf))),
-        params)
-
-
-def params_shardings(params, mesh: Mesh):
-    """The NamedSharding pytree matching :func:`shard_params`."""
-    return jax.tree_util.tree_map_with_path(
-        lambda path, leaf: NamedSharding(mesh, param_spec(path, leaf)),
         params)
 
 

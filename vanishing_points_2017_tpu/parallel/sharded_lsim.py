@@ -3,8 +3,8 @@
 The reference has no sequences/attention; its quadratic-cost axis is N =
 number of line segments, kept tractable with CPU process pools
 (``calc_lsim``/``line_rating_knn``, ``vp_localisation.py:34-108`` of
-fkluger/vanishing_points_2017; SURVEY §2.10/§5). The TPU-native scaling
-story for very large N is the same pattern as blockwise/ring attention
+fkluger/vanishing_points_2017; SURVEY §2.10/§5). The scaling story for
+very large N is the same pattern as blockwise/ring attention
 applied to the lsim matrix instead: shard the ROW block of the N x N
 similarity computation across the mesh's ``dp`` axis and all-gather the
 (small) segment array so each device computes its (N/d, N) strip.
@@ -24,6 +24,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..ops import lines as lineops
+from ..ops.lines import HIGHEST
 
 
 def _lsim_strip(lp_strip: jnp.ndarray, mask_strip: jnp.ndarray,
@@ -48,7 +49,7 @@ def _lsim_strip(lp_strip: jnp.ndarray, mask_strip: jnp.ndarray,
     na = jnp.linalg.norm(v_a, axis=-1)
     vs = v_s / jnp.where(ns == 0, 1.0, ns)[:, None]
     va = v_a / jnp.where(na == 0, 1.0, na)[:, None]
-    dot = jnp.abs(vs @ va.T)
+    dot = jnp.abs(jnp.matmul(vs, va.T, precision=HIGHEST))
     cross = jnp.abs(vs[:, None, 0] * va[None, :, 1]
                     - vs[:, None, 1] * va[None, :, 0])
     dphi = jnp.arctan2(cross, dot)

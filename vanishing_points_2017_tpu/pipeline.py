@@ -26,6 +26,7 @@ from .em.horizon import calculate_horizon_and_ortho_vp
 from .models import cnn as cnn_mod
 from .ops import lines as lineops
 from .ops import sphere as sphere_mod
+from .utils.compile_cache import COMPILER_OPTIONS
 
 
 BUCKETS = (512, 1024, 2048)
@@ -57,18 +58,11 @@ class PipelineConfig:
     # equivalent to 4/16 on all bundled reference photos; inf restores
     # exact reference gating.
     horizon_pos_gate_tol: float = 8.0
-    renderer: str = "xla"        # "xla" | "pallas" (TPU-only kernel)
-    cnn_dtype: str = "bfloat16"  # inference conv/fc compute dtype; the CNN
-    # output is a soft 20x20 prior, bf16 on the MXU halves its HBM traffic
-    # (training runs bf16 already; "float32" restores exact r1 numerics)
-    # Device-detector CCL kernel implementation (device_pipeline_full
-    # only). None = backend default (Pallas on TPU, overridable via the
-    # VP_CCL_IMPL env var read at trace time); explicit "xla"/"pallas"
-    # is part of the jit static key, so it composes with nested-jit
-    # trace caching where an env flip would silently not
-    # (parallel/inference.py relies on this to force the partitionable
-    # XLA impl under GSPMD).
-    ccl_impl: str | None = None
+    # CNN compute dtype for inference. bf16 halves the conv/fc operand
+    # traffic; cuDNN/cuBLAS accumulate the bf16 products in float32 and
+    # round each layer's output to bf16 (models/cnn.py). The output is a
+    # soft 20x20 prior; "float32" gives the plain reference numerics.
+    cnn_dtype: str = "bfloat16"
     # Device-detector noise gates, arbitrated jointly over the
     # reference's bundled REAL photographs (vs its published result
     # figures) and 16 rendered synthetic scenes
@@ -84,10 +78,8 @@ class PipelineConfig:
     det_min_len_px: float = 12.0
     det_min_density: float = 0.7
     # Run-record selection strategy. "global" (default) = one image-wide
-    # top-max_records by run mass — chip-measured faster than the row
-    # budget (whole detector ~2.2 ms/img device at batch 16 with a 16k
-    # budget vs ~3.5 row; see BASELINE.md for the budget sweep) with
-    # synthetic AUC within 0.005 of the host-LSD path. Through round 3 it was
+    # top-max_records by run mass, free of per-row drops, with synthetic
+    # AUC within 0.005 of the host-LSD path. Through round 3 it was
     # opt-in because its slightly different f32 record order flipped the
     # EM's knife-edge zenith split on the reference's texture-heavy ihme
     # facade (horizon err 0.45 vs 0.05); that knife edge traced to the
@@ -107,19 +99,14 @@ class PipelineConfig:
     # synthetic-only throughput deployments should lower it.
     det_selection: str = "global"
     det_max_records: int = 32768
-    # Global-selection top-k implementation: "exact" (bit-exact full
-    # top_k) or "approx" (jax.lax.approx_max_k, the TPU-native
-    # PartialReduce — chip-measured ~3 ms/batch-of-16 cheaper inside the
-    # whole detector where the exact chains cost ~1.5 ms/img). approx
-    # keeps the exact candidate SET whenever the image holds <=
-    # det_max_records nonzero runs (all synthetic scenes); above the
-    # budget it may miss ~1% of records near the mass boundary —
-    # measured recall 1.0000 on a dense 57k-candidate input. DEFAULT
-    # since round 5: the chip re-validation gate passed with outputs
-    # identical to exact (real photos 0.040/0.009/0.005, synthetic gap
-    # +0.0044 — BASELINE.md round-5). "exact" remains the bit-exact
-    # fallback; on CPU backends approx lowers to the exact sort anyway.
-    det_topk: str = "approx"
+    # Global-selection top-k implementation: "exact" (bit-exact two-stage
+    # top_k) or "approx" (jax.lax.approx_max_k). On the GPU and the CPU,
+    # XLA lowers approx_max_k to a sort of all H*W run ends, so both keep
+    # the exact record set and differ only in speed: at b32 640x640 on an
+    # H100 (400 W), exact 32.781 ms and approx 34.079 ms per batch for the
+    # whole program, 10.784 and 12.254 ms inside the detector
+    # (chip_smoke.py phase 5), so exact is the default.
+    det_topk: str = "exact"
     # Bootstrap-consensus horizon (em/consensus.py): 0/1 = off (the
     # reference-parity single EM — the production default), K > 1 = run
     # K bootstrap resamples of the segment population through EM +
@@ -171,28 +158,15 @@ class PipelineConfig:
         (``benchmark.py --device_detect``), so detector-gate or
         selection-strategy changes invalidate exactly those caches and
         never the host-LSD ones (whose results don't depend on det_*).
-
-        Includes the RESOLVED CCL impl (Pallas CCL is bit-exact vs the
-        XLA raster scan — included anyway so a future impl with
-        different labels cannot contaminate). Resolution mirrors the
-        dispatch site in ops/lines_device.py exactly: the Pallas impl
-        only ever runs when the default backend is TPU, so a CPU run
-        keys as xla whatever the env says."""
-        import os
-
-        import jax
-        on_tpu = jax.default_backend() == "tpu"
-        ccl = self.ccl_impl or os.environ.get("VP_CCL_IMPL", "pallas")
-        ccl = "xla" if (not on_tpu or ccl == "xla") else "pallas"
-        # det_topk is omitted at "exact" (the bit-exact reference point):
+        The CCL implementation is not part of it: the GPU kernel and the
+        scan give identical labels."""
+        # det_topk is omitted at "exact" (the bit-exact reference point) so
         # exact-path caches keep their historical keys, while approx-path
-        # results (the round-5 default — identical on-chip outputs but a
-        # DIFFERENT algorithm above the record budget) key separately and
-        # can never serve an exact-path consumer
+        # results key separately and can never serve an exact-path consumer
         topk = "" if self.det_topk == "exact" else f"-{self.det_topk}"
         return (f"det{self.det_selection}{self.det_min_count}"
                 f"-{self.det_min_len_px:g}-{self.det_min_density:g}"
-                f"-{self.det_max_records}-{ccl}{topk}")
+                f"-{self.det_max_records}{topk}")
 
 
 def pad_lines(segments: np.ndarray, n_pad: int):
@@ -225,21 +199,25 @@ def pad_lines(segments: np.ndarray, n_pad: int):
     return l, lp, lmask
 
 
-@functools.partial(jax.jit, static_argnames=("cfg",))
-def device_pipeline(l: jnp.ndarray, lp: jnp.ndarray, lmask: jnp.ndarray,
-                    params: Any, mean: jnp.ndarray,
-                    cfg: PipelineConfig) -> dict:
+# The entry points below are top-level jits with the package's compile
+# options (fixed GPU autotuning picks; utils/compile_cache.COMPILER_OPTIONS).
+# JAX takes compile options only on a top-level jit, so a program that
+# embeds the pipeline in its own jit calls the undecorated
+# ``_device_pipeline*`` functions and passes COMPILER_OPTIONS to its own
+# jit.
+_entry_point = functools.partial(jax.jit, static_argnames=("cfg",),
+                                 compiler_options=COMPILER_OPTIONS)
+
+
+def _device_pipeline(l: jnp.ndarray, lp: jnp.ndarray, lmask: jnp.ndarray,
+                     params: Any, mean: jnp.ndarray,
+                     cfg: PipelineConfig) -> dict:
     """The fused per-image program. All shapes static.
 
     l/lp/lmask: (N,3)/(N,4)/(N,) padded lines; params: CNN pytree; mean:
     (S, S) training mean image. Returns a dict of device arrays.
     """
-    if cfg.renderer == "pallas":
-        from .ops.sphere_pallas import sphere_render_pallas
-        img = sphere_render_pallas(l, lmask, size=cfg.sphere_size)
-        img_u8 = jnp.floor(img * 255.0).astype(jnp.uint8)
-    else:
-        img_u8 = sphere_mod.sphere_image_uint8(l, lmask, size=cfg.sphere_size)
+    img_u8 = sphere_mod.sphere_image_uint8(l, lmask, size=cfg.sphere_size)
     x = cnn_mod.preprocess(img_u8[None], mean)
     pred = cnn_mod.forward(params, x,
                            compute_dtype=jnp.dtype(cfg.cnn_dtype).type)[0]
@@ -271,17 +249,21 @@ def device_pipeline(l: jnp.ndarray, lp: jnp.ndarray, lmask: jnp.ndarray,
     }
 
 
-@functools.partial(jax.jit, static_argnames=("cfg",))
-def device_pipeline_batch(l, lp, lmask, params, mean, cfg: PipelineConfig):
+device_pipeline = _entry_point(_device_pipeline)
+
+
+def _device_pipeline_batch(l, lp, lmask, params, mean, cfg: PipelineConfig):
     """vmapped fused program over an image batch — the throughput path."""
     return jax.vmap(
-        lambda a, b, c: device_pipeline(a, b, c, params, mean, cfg)
+        lambda a, b, c: _device_pipeline(a, b, c, params, mean, cfg)
     )(l, lp, lmask)
 
 
-@functools.partial(jax.jit, static_argnames=("cfg",))
-def device_pipeline_full(images: jnp.ndarray, params: Any, mean: jnp.ndarray,
-                         cfg: PipelineConfig) -> dict:
+device_pipeline_batch = _entry_point(_device_pipeline_batch)
+
+
+def _device_pipeline_full(images: jnp.ndarray, params: Any,
+                          mean: jnp.ndarray, cfg: PipelineConfig) -> dict:
     """The ZERO-host-round-trip program: grayscale images in, horizons out.
 
     Uses the on-device line detector (``ops/lines_device.py``) instead of
@@ -296,15 +278,17 @@ def device_pipeline_full(images: jnp.ndarray, params: Any, mean: jnp.ndarray,
                                            min_count=cfg.det_min_count,
                                            min_len_px=cfg.det_min_len_px,
                                            min_density=cfg.det_min_density,
-                                           ccl_impl=cfg.ccl_impl,
                                            selection=cfg.det_selection,
                                            max_records=cfg.det_max_records,
                                            topk_impl=cfg.det_topk)
         l = lineops.segments_to_homogeneous(lp)
         l = jnp.where(lmask[:, None], l, 0.0)
-        return device_pipeline(l, lp, lmask, params, mean, cfg)
+        return _device_pipeline(l, lp, lmask, params, mean, cfg)
 
     return jax.vmap(one)(images)
+
+
+device_pipeline_full = _entry_point(_device_pipeline_full)
 
 
 class Pipeline:
